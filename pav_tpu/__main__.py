@@ -12,7 +12,8 @@ import sys
 def main(argv=None):
     parser = argparse.ArgumentParser(
         prog='pav_tpu',
-        description='TPU-native assembly-to-reference variant calling engine')
+        description='GPU-accelerated assembly-to-reference variant calling engine '
+                    '(PAV semantics, JAX + CUDA)')
     parser.add_argument('--ref', required=True, help='Reference FASTA')
     parser.add_argument('--assemblies', required=True,
                         help='Assembly table TSV/CSV (NAME + HAP_* columns)')
@@ -48,8 +49,10 @@ def main(argv=None):
 
     # Engine processes churn large short-lived buffers; keeping freed pages in
     # the heap avoids munmap/refault cycles (critical on lazily-restored VMs).
-    from .runtime import retain_heap
+    from .runtime import enable_compile_cache, retain_heap
     retain_heap(0)
+    # Sets configuration only: safe before jax.distributed.initialize below.
+    enable_compile_cache()
 
     overrides = {}
     if args.config:

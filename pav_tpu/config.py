@@ -10,7 +10,7 @@ pavlib/pipeline.py:404-508, parameter reference CONFIG.md:16-248). The
 import json
 
 # Built-in defaults mirroring the reference's documented parameters (CONFIG.md) plus
-# engine-specific knobs for the TPU aligner.
+# engine-specific knobs for the native aligner.
 DEFAULTS = {
     # Input / output
     'reference': None,

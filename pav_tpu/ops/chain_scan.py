@@ -118,8 +118,7 @@ def chain_scores_batch(slabs, k, lookback=64, max_dist=50000,
     f, parent = _chain_scan_batch(
         put(qp), put(rp), put(gp), int(lookback), int(k),
         float(max_dist), float(max_gap_diff), float(gap_scale))
-    from ..runtime import fetch
-    f_np, p_np = fetch(f), fetch(parent)
+    f_np, p_np = np.asarray(f), np.asarray(parent)
     return [(f_np[i, :lens[i]], p_np[i, :lens[i]].astype(np.int64))
             for i in range(B)]
 
@@ -167,5 +166,4 @@ def chain_scores(qpos, rpos, group, k, lookback=64, max_dist=50000,
         jnp.asarray(qpos_p), jnp.asarray(rpos_p), jnp.asarray(group_p),
         int(lookback), int(k),
         float(max_dist), float(max_gap_diff), float(gap_scale))
-    from ..runtime import fetch
-    return fetch(f)[:n], fetch(parent)[:n]
+    return np.asarray(f)[:n], np.asarray(parent)[:n]

@@ -3,9 +3,9 @@ processes with jax.distributed coordination.
 
 The reference distributes pipeline rules across a cluster through Snakemake
 profiles (NATIVE_INSTALL.md:68-103, profiles/default/config.yaml): every job is
-share-nothing and files are the interchange. The TPU-native mapping keeps that
-shape at the top level — each host process owns a deterministic shard of the
-sample table and runs the full engine on its local chip(s), with the
+share-nothing and files are the interchange. This engine keeps that shape at
+the top level — each process owns a deterministic shard of the sample table
+and runs the full engine on its own device(s), with the
 device-mesh layer (parallel.mesh) sharding batched kernels inside each host —
 and replaces the filesystem rendezvous with the jax.distributed coordination
 service: a key-value store for artifact exchange and named barriers for stage
@@ -33,13 +33,16 @@ the whole cohort's VCFs locally — the in-memory analog of the reference's
 shared-FS file interchange.
 
 Works on any backend (the coordination service is backend-independent), so the
-cohort path is testable on CPU hosts without TPU pods; on a pod slice, each
-host's engine additionally shards DP batches over its local mesh.
+cohort path is testable on CPU hosts. On GPU hosts each process owns exactly
+one card (see :func:`init`): a JAX process reserves most of a card's memory,
+so two processes on one card would fail.
 """
 
 import base64
 import json
 import os
+import socket
+import subprocess
 import time
 
 import numpy as np
@@ -51,8 +54,28 @@ _RAISE = object()
 _CHUNK = 1 << 20
 
 
+def local_gpu_count():
+    """Number of GPUs this host offers JAX, read without starting JAX's
+    backend (0 when JAX_PLATFORMS excludes the GPU or there is none)."""
+    platforms = os.environ.get('JAX_PLATFORMS', '')
+    if platforms and not any(p in platforms for p in ('cuda', 'gpu')):
+        return 0
+    visible = os.environ.get('CUDA_VISIBLE_DEVICES')
+    if visible is not None:
+        return len([v for v in visible.split(',') if v.strip()])
+    try:
+        out = subprocess.run(['nvidia-smi', '-L'], capture_output=True,
+                             text=True, timeout=30).stdout
+    except (OSError, subprocess.SubprocessError):
+        return 0
+    return sum(1 for line in out.splitlines() if line.startswith('GPU '))
+
+
 def init(coordinator, num_processes, process_id, keep_going=True):
     """Initialize jax.distributed for a cohort run.
+
+    On a GPU host, process p owns local card p mod (cards on the host);
+    processes that would share a card fail with an error instead.
 
     :param coordinator: 'host:port' of process 0.
     :param keep_going: run the coordination client in recoverable mode so a
@@ -64,8 +87,22 @@ def init(coordinator, num_processes, process_id, keep_going=True):
 
     if keep_going:
         jax.config.update('jax_enable_recoverability', True)
-    jax.distributed.initialize(coordinator, num_processes, process_id)
-    return Cohort(num_processes, process_id)
+    cards = local_gpu_count()
+    card = process_id % cards if cards else None
+    jax.distributed.initialize(
+        coordinator, num_processes, process_id,
+        local_device_ids=None if card is None else [card])
+    cohort = Cohort(num_processes, process_id)
+    if card is not None:
+        owners = cohort.allgather_obj('card', [socket.gethostname(), card])
+        shared = [p for p, o in enumerate(owners)
+                  if p != process_id and o == owners[process_id]]
+        if shared:
+            raise RuntimeError(
+                f'cohort process {process_id} would share GPU {card} on '
+                f'{owners[process_id][0]} with process(es) {shared}: run at '
+                'most one cohort process per card')
+    return cohort
 
 
 def shard_samples(sample_names, process_id, num_processes):

@@ -104,7 +104,7 @@ class Pipeline:
             n_mesh = int(self.config.get('mesh_devices', 0) or 0)
             if n_mesh > 1:
                 # Shard DP batches across a device mesh (contig-batch data
-                # parallelism; SURVEY.md §2.8 TPU mapping).
+                # parallelism).
                 import jax
                 from .ops.affine_dp import BandedAligner
                 from .parallel.mesh import make_mesh
@@ -126,10 +126,6 @@ class Pipeline:
             t0 = _time.time()
             yield
             self.timings[(label, stage)] = round(_time.time() - t0, 3)
-            # Heartbeat for link-wedge watchdogs: stage completions prove the
-            # process is advancing even through long device-free host phases.
-            from .runtime import mark_progress
-            mark_progress()
         return cm()
 
     def run_haplotype(self, qry_store, hap, config=None, label=None,

@@ -231,9 +231,6 @@ def test_accel_bucketing_transpose_equivalence(monkeypatch):
     monkeypatch.setattr(jax, 'default_backend', lambda: 'fake-accel')
     monkeypatch.setattr(core_mod, '_shape_batch',
                         lambda m_b, w_b, n_b=None: 16)
-    # The fake accel backend must not route to the Mosaic kernel (it would
-    # fail on the CPU device and pollute the persisted bad-shape cache).
-    monkeypatch.setenv('PAV_TPU_PALLAS', '0')
     df_acc = Aligner(ref_store, {'aligner_min_chain_score': 500}).align_store(
         store, 'h1')
 

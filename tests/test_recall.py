@@ -9,29 +9,10 @@ import pytest
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+from bench import truth_table as truth_to_df
 from pav_tpu import eval as ev
 from pav_tpu.io.fasta import SeqStore
 from pav_tpu.pipeline import Pipeline
-
-
-def truth_to_df(truth, chrom='chr1'):
-    rows = []
-    for t in truth:
-        if t['type'] == 'SNV':
-            rows.append((chrom, t['pos'], t['pos'] + 1, 'SNV', 1,
-                         t['ref'], t['alt']))
-        elif t['type'] == 'INS':
-            rows.append((chrom, t['pos'], t['pos'] + 1, 'INS', t['len'], 'N', 'N'))
-        elif t['type'] == 'DEL':
-            rows.append((chrom, t['pos'], t['pos'] + t['len'], 'DEL', t['len'], 'N', 'N'))
-        elif t['type'] == 'INV':
-            rows.append((chrom, t['pos'], t['pos'] + t['len'], 'INV', t['len'], 'N', 'N'))
-    df = pd.DataFrame(rows, columns=['#CHROM', 'POS', 'END', 'SVTYPE', 'SVLEN',
-                                     'REF', 'ALT'])
-    df['ID'] = [f'truth{i}' for i in range(df.shape[0])]
-    df['FILTER'] = 'PASS'
-    df['GT'] = '1'
-    return df
 
 
 def calls_to_df(merged):
